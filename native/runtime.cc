@@ -1,6 +1,6 @@
-// Native host runtime for the TPU LTE PHY framework.
+// Native host runtime for the LTE PHY framework.
 //
-// TPU-native counterparts of the reference's host-side C/C++ runtime
+// Counterparts of the reference's host-side C/C++ runtime
 // (SURVEY.md §2.2/§2.3): while JAX/XLA owns the compute path, the
 // real-time edges of the system — sample transport, buffering, packet
 // capture — stay native so the Python orchestration never sits between

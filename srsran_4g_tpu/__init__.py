@@ -1,13 +1,13 @@
-"""srsran_4g_tpu — a TPU-native LTE PHY signal-processing framework.
+"""srsran_4g_tpu — an accelerator-native LTE PHY signal-processing framework.
 
 A brand-new JAX/XLA/Pallas implementation of the LTE downlink/uplink physical
 layer with the capabilities of srsRAN_4G's PHY library (reference:
-/root/reference/lib/src/phy). Everything is designed TPU-first:
+lib/src/phy of srsRAN_4G), running on a GPU (the CPU serves the tests):
 
 - batched, static-shape kernels (batch dim = subframes / transport blocks / UEs)
 - gathers with precomputed device-resident index tensors instead of scalar loops
 - `lax.scan`/`lax.associative_scan` for trellis/LFSR recursions
-- GF(2) linear algebra (CRC, encoders) as MXU matmuls
+- GF(2) linear algebra (CRC, encoders) as float matmuls, exact for 0/1
 - sharding via `jax.sharding.Mesh` + `shard_map`, halo exchange via `ppermute`
 
 Subpackage map (≈ reference directory in parentheses):

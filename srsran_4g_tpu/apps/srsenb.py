@@ -1,4 +1,4 @@
-"""srsENB process: eNB stack + TPU PHY behind real transports.
+"""srsENB process: eNB stack + accelerator PHY behind real transports.
 
 The framework's counterpart of `srsenb/src/enb.cc:74` + `main.cc`: a
 standalone eNodeB process that
@@ -30,7 +30,7 @@ import time
 
 
 def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description="TPU-native srsENB")
+    ap = argparse.ArgumentParser(description="srsENB (accelerator PHY)")
     ap.add_argument("--config", default=None, help="INI config (enb.conf)")
     ap.add_argument("--dl-port", type=int, default=45201,
                     help="IQ bridge port this eNB serves DL samples on")
@@ -58,12 +58,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-v", action="store_true")
     args = ap.parse_args(argv)
 
-    import os
+    from srsran_4g_tpu.utils import compile_cache
 
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+    compile_cache.enable()
     import jax.numpy as jnp
     import numpy as np
 

@@ -49,7 +49,7 @@ class FrameReader:
 
 
 def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description="TPU-native srsEPC")
+    ap = argparse.ArgumentParser(description="srsEPC")
     ap.add_argument("--s1ap-port", type=int, default=36412)
     ap.add_argument("--gtpu-port", type=int, default=2152)
     ap.add_argument("--ues", type=int, default=1,

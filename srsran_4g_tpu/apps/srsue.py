@@ -1,4 +1,4 @@
-"""srsUE process: UE stack + TPU PHY behind the native IQ bridge.
+"""srsUE process: UE stack + accelerator PHY behind the native IQ bridge.
 
 The framework's counterpart of `srsue/src/main.cc:724` + `ue.cc:53`: a
 standalone UE process that connects to the eNB's DL IQ stream, runs the
@@ -21,7 +21,7 @@ import time
 
 
 def main(argv: list[str] | None = None) -> int:
-    ap = argparse.ArgumentParser(description="TPU-native srsUE")
+    ap = argparse.ArgumentParser(description="srsUE (accelerator PHY)")
     ap.add_argument("--config", default=None, help="INI config (ue.conf)")
     ap.add_argument("--dl-addr", default="127.0.0.1")
     ap.add_argument("--dl-port", type=int, default=45201,
@@ -45,12 +45,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("-v", action="store_true")
     args = ap.parse_args(argv)
 
-    import os
+    from srsran_4g_tpu.utils import compile_cache
 
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+    compile_cache.enable()
     import jax.numpy as jnp
     import numpy as np
 

@@ -3,7 +3,7 @@
 Counterpart of the reference's `lib/src/phy/channel/fading.c`
 (EPA/EVA/ETU tap tables, fading.c:33-69; FFT overlap-save convolution).
 
-TPU design: per-tap Rayleigh processes are generated with a sum-of-sinusoids
+Design: per-tap Rayleigh processes are generated with a sum-of-sinusoids
 (Jakes) model — fully vectorised over (batch, taps, time-blocks) — and the
 channel is applied in the frequency domain per OFDM-symbol-sized block, or
 as a dense time-domain FIR for short filters.  A sharded overlap-save

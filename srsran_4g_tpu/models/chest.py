@@ -5,11 +5,11 @@ LS estimation at CRS pilots, noise-reducing smoothing filter (default
 triangular, chest_dl.c:39), time/frequency interpolation to the full grid,
 and noise-variance / RSRP / SNR estimators.
 
-TPU design: pilot extraction is a gather with the static CRS pattern;
+Design: pilot extraction is a gather with the static CRS pattern;
 smoothing is a small depthwise convolution along the pilot-frequency axis;
 interpolation is expressed as two precomputed sparse-as-dense matmuls
 (pilot→subcarrier along frequency, pilot-symbol→symbol along time) so the
-whole estimator is a couple of batched GEMMs — MXU-friendly and trivially
+whole estimator is a couple of batched GEMMs — dense and trivially
 batched over subframes/UEs.
 """
 
@@ -18,6 +18,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -93,7 +94,7 @@ def _wiener_matrix(cell: G.CellConfig, k0: int, delay_spread_us: float,
     (`lib/src/phy/ch_estimation/wiener_dl.c`, hooked at chest_dl.c:144):
     W = R_dp (R_pp + sigma^2 I)^{-1} with an exponential-PDP frequency
     correlation r(dk) = 1 / (1 + j 2*pi*tau_rms*df*dk).  Precomputed at
-    trace time -> one MXU matmul per subframe at run time.
+    trace time -> one matmul per subframe at run time.
     """
     n_p = 2 * cell.nof_prb
     pil_k = k0 + 6 * np.arange(n_p)
@@ -175,12 +176,17 @@ def estimate(
                 for s in range(len(syms_np))
             ])
         )  # (S, P, nre)
-    h_freq = jnp.einsum("...sp,spk->...sk", h_sm, wf.astype(jnp.complex64))
+    # HIGHEST: a GPU would otherwise run these complex64 products in TF32,
+    # whose ~1e-3 relative error is an estimation-noise floor near -60 dB;
+    # the products are small next to the receiver, so full f32 costs little
+    h_freq = jnp.einsum("...sp,spk->...sk", h_sm, wf.astype(jnp.complex64),
+                        precision=jax.lax.Precision.HIGHEST)
     wt = jnp.asarray(
         _time_interp_matrix(tuple(int(s) for s in syms_np), cell.nsymb,
                             cfg.interpolate_time)
     )
-    h = jnp.einsum("...sk,sl->...lk", h_freq, wt.astype(jnp.complex64))
+    h = jnp.einsum("...sk,sl->...lk", h_freq, wt.astype(jnp.complex64),
+                   precision=jax.lax.Precision.HIGHEST)
 
     snr_db = 10.0 * jnp.log10(
         jnp.maximum(rsrp - noise_var, 1e-12) / jnp.maximum(noise_var, 1e-12)

@@ -5,7 +5,7 @@ Counterpart of the reference's `lib/src/phy/mimo/precoding.c`
 CSI weighting that scales LLRs by per-RE channel quality
 (precoding.c:287-389).  SFBC (TM2) diversity decode for 2 ports.
 
-All element-wise complex math on (..., nsymb, nre) tensors — VPU work that
+All element-wise complex math on (..., nsymb, nre) tensors — elementwise work that
 XLA fuses with the surrounding demodulation.
 """
 

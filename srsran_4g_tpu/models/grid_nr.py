@@ -7,7 +7,7 @@ comb mapping for PDSCH/PUSCH mapping type A, and the per-symbol Gold
 sequence seeds.
 
 One slot = 14 OFDM symbols (normal CP); the compute grid is
-(batch, 14, 12*N_RB) complex64, batched over slots — the TPU replaces
+(batch, 14, 12*N_RB) complex64, batched over slots — the framework replaces
 the reference's per-slot worker threads with a batch dimension.
 """
 

@@ -10,7 +10,7 @@ measurement of a known PCI on the serving frequency), and
 pucch_power / srs_power — TS 36.213 §5.1 open-loop + accumulated
 closed-loop TPC).
 
-TPU-first: the neighbour search correlates all three PSS roots in one
+Batch-first: the neighbour search correlates all three PSS roots in one
 batched FFT matched filter (sync.find_pss already computes the (B,3,N)
 correlation surface — here we keep the per-root peaks instead of the
 argmax), and CRS measurement is a gather + mean over the pilot lattice.

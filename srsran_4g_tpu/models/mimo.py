@@ -7,11 +7,12 @@ selection (precoding.c:srsran_pmi_select) as a capacity argmax over the
 codebook — evaluated for every RE of every subframe in one shot.
 
 All 2×2 solves are closed-form (adjugate/determinant) element-wise complex
-arithmetic — no linear-algebra library calls, pure VPU work.
+arithmetic — no linear-algebra library calls, pure elementwise work.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -47,10 +48,16 @@ def layer_demap(layers: jnp.ndarray, n_codewords: int) -> list[jnp.ndarray]:
     return [layers[..., 0, :], layers[..., 1, :]]
 
 
+# The 2x2 precoding products below contract over 2 ports or layers.  Full
+# f32 costs nothing at that size, and it keeps a GPU from running them in
+# TF32 (~1e-3 relative error) where the CPU computes them exactly.
+_F32 = jax.lax.Precision.HIGHEST
+
+
 def precode_2x2(x: jnp.ndarray, pmi: int) -> jnp.ndarray:
     """(..., 2, S) layers → (..., 2, S) antenna ports, rank-2 codebook."""
     w = jnp.asarray(_CODEBOOK_2TX_R2[pmi])
-    return jnp.einsum("ij,...js->...is", w, x)
+    return jnp.einsum("ij,...js->...is", w, x, precision=_F32)
 
 
 def cdd_precode_2x2(x: jnp.ndarray) -> jnp.ndarray:
@@ -63,10 +70,10 @@ def cdd_precode_2x2(x: jnp.ndarray) -> jnp.ndarray:
                              dtype=np.complex64) / np.sqrt(2))
     i = jnp.arange(s)
     d1 = jnp.exp(-2j * jnp.pi * i / 2).astype(jnp.complex64)
-    ux = jnp.einsum("ij,...js->...is", u, x)
+    ux = jnp.einsum("ij,...js->...is", u, x, precision=_F32)
     ux = ux.at[..., 1, :].multiply(d1)
     w = jnp.asarray(_CODEBOOK_2TX_R2[0])
-    return jnp.einsum("ij,...js->...is", w, ux)
+    return jnp.einsum("ij,...js->...is", w, ux, precision=_F32)
 
 
 def sfbc_encode_2(syms: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -188,7 +195,7 @@ def pmi_select_2tx(
     metrics = []
     for wi in range(1, 3):  # rank-2 TM4 codebook indices 1..2
         w = jnp.asarray(_CODEBOOK_2TX_R2[wi])
-        hw = jnp.einsum("...rls,lk->...rks", h, w)
+        hw = jnp.einsum("...rls,lk->...rks", h, w, precision=_F32)
         g00 = jnp.sum(jnp.abs(hw[..., :, 0, :]) ** 2, axis=-2)
         g11 = jnp.sum(jnp.abs(hw[..., :, 1, :]) ** 2, axis=-2)
         cap = jnp.log2(1 + g00 / nv) + jnp.log2(1 + g11 / nv)

@@ -16,7 +16,7 @@ Counterpart of the reference's `lib/src/phy/phch/npdcch.c`, `npdsch.c`,
 - TBS tables 16.4.1.5.1-1 / 16.4.1.5.2-1 / 16.5.1.2-2 and the DCI
   N0/N1/N2 field layouts of TS 36.212 §6.4.3.
 
-TPU-first: the subframe axis of a multi-subframe NPDSCH is just another
+Batch-first: the subframe axis of a multi-subframe NPDSCH is just another
 batch dim; all REs/permutations are host-precomputed index tensors and
 the decoder is one batched Viterbi over (B·nof_candidates) for the
 NPDCCH blind search.

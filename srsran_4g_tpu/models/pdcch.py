@@ -9,11 +9,11 @@ Chain: DCI payload → CRC16 XOR-masked with the RNTI → tail-biting conv 1/3
 scrambling → QPSK → quadruplet interleaving over the control REGs
 (models/regs.py) → grid.
 
-TPU design for blind decoding: all (search-space candidate × DCI length)
+Design for blind decoding: all (search-space candidate × DCI length)
 hypotheses of the whole batch are gathered into one (B, n_cand, E_max) LLR
 tensor and pushed through ONE batched Viterbi per DCI length; CRC/RNTI
 checks are batched matmuls.  Where the reference walks a tree of candidates
-sequentially per TTI (pdcch.c dci blind search), the TPU build decodes every
+sequentially per TTI (pdcch.c dci blind search), this build decodes every
 candidate of every subframe in parallel.
 """
 

@@ -140,22 +140,20 @@ def add_crs(cfg: PdschConfig, grid_tx: jnp.ndarray, port: int = 0) -> jnp.ndarra
     return g.at[..., jnp.asarray(syms)[:, None], jnp.asarray(scs)].set(vals)
 
 
-def decode(
+def demap(
     cfg: PdschConfig,
     rx_grid: jnp.ndarray,
     h: jnp.ndarray | None = None,
     noise_var: jnp.ndarray | float | None = None,
-    softbuffers: dict | None = None,
-    n_iter: int = 5,
     chest_cfg: chest_mod.ChestConfig | None = None,
-    cb_shard: tuple[str, int] | None = None,
 ) -> dict:
-    """Decode PDSCH from a received resource grid.
+    """Receiver front end: grid → equalised symbols → codeword LLRs.
 
     If ``h``/``noise_var`` are not given, they are estimated from the CRS
     (srsran_ue_dl_decode_fft_estimate path, ue_dl.c:349).
 
-    Returns dict(bits, crc_ok, softbuffers, h, noise_var, snr_db?).
+    Returns dict(x (B, nof_re) equalised symbols, llr (B, G) descrambled
+    LLRs, h, noise_var, snr_db?).
     """
     out: dict = {}
     n_ports = cfg.cell.nof_ports
@@ -198,9 +196,29 @@ def decode(
     llr = scrambling.descramble_llrs(
         llr_scr.reshape(b, cfg.g_bits), jnp.asarray(cfg.scramble_seq)
     )
+    out.update(x=x, llr=llr, h=h, noise_var=noise_var)
+    return out
+
+
+def decode(
+    cfg: PdschConfig,
+    rx_grid: jnp.ndarray,
+    h: jnp.ndarray | None = None,
+    noise_var: jnp.ndarray | float | None = None,
+    softbuffers: dict | None = None,
+    n_iter: int = 5,
+    chest_cfg: chest_mod.ChestConfig | None = None,
+    cb_shard: tuple[str, int] | None = None,
+) -> dict:
+    """Decode PDSCH from a received resource grid (`demap` + DL-SCH).
+
+    Returns dict(bits, crc_ok, softbuffers, h, noise_var, snr_db?).
+    """
+    out = demap(cfg, rx_grid, h, noise_var, chest_cfg)
+    del out["x"]
     bits, ok, soft = sch.dlsch_decode(
-        cfg.plan, llr, softbuffers=softbuffers, n_iter=n_iter,
+        cfg.plan, out.pop("llr"), softbuffers=softbuffers, n_iter=n_iter,
         cb_shard=cb_shard,
     )
-    out.update(bits=bits, crc_ok=ok, softbuffers=soft, h=h, noise_var=noise_var)
+    out.update(bits=bits, crc_ok=ok, softbuffers=soft)
     return out

@@ -5,10 +5,10 @@ Counterpart of the reference's `lib/src/phy/phch/sch.c`
 code-block segmentation with per-CB CRC24B, turbo coding, rate matching with
 redundancy versions and HARQ soft-buffers, and code-block (de)concatenation.
 
-TPU design: segmentation is resolved to a *static plan* on the host (one or
+Design: segmentation is resolved to a *static plan* on the host (one or
 two code-block size groups); each group's CBs across the whole batch of TBs
 are decoded together as one `(B·C_g, ...)` tensor so the windowed turbo
-decoder sees one big batch.  CRC checks are MXU matmuls over the same batch.
+decoder sees one big batch.  CRC checks are matmuls over the same batch.
 Filler bits are handled per spec: encoded as 0, NULLed in rate matching,
 pinned to a strong bit-0 LLR before decoding.
 """

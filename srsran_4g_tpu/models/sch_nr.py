@@ -4,7 +4,7 @@ Counterpart of the reference's `lib/src/phy/phch/sch_nr.c`: TB CRC (16 or
 24A), LDPC base-graph selection, code-block segmentation with CRC24B and
 filler bits, per-CB LDPC encode + rate matching with rv, concatenation,
 and the decode path with HARQ soft-buffers and CRC checks — all CBs of
-the batch decoded together by the TPU min-sum decoder (ops/ldpc.py).
+the batch decoded together by the batched min-sum decoder (ops/ldpc.py).
 """
 
 from __future__ import annotations

@@ -773,7 +773,7 @@ def slss_find(samples: np.ndarray, nof_prb: int, symbol_sz: int,
     (symbols 1–2 of an SLSS subframe, 36.211 §9.7.1) against the raw
     capture and return the implied subframe start.
 
-    The TPU counterpart of the reference's `sync_sl.c` PSSS correlation
+    The batched counterpart of the reference's `sync_sl.c` PSSS correlation
     stage that `ue_sl` runs before any PSBCH decode — captures from
     real testers (e.g. the CMW500 SLSS file) are not aligned to sample
     0, so timing must come from the sync signal itself.  The two PSSS
@@ -821,7 +821,7 @@ def psbch_sync_decode(samples: np.ndarray, nof_prb: int, symbol_sz: int,
     binary a manual `-o`, CMakeLists.txt:136); instead of a magic
     constant, all fine-timing hypotheses are demodulated and PSBCH-
     decoded as ONE batch and the CRC selects the winner — the batch
-    axis is the TPU-native form of `sync_sl.c`'s serial search."""
+    axis is the batched form of `sync_sl.c`'s serial search."""
     cp0 = symbol_sz * 160 // 2048
     coarse = slss_find(samples, nof_prb, symbol_sz,
                        26 if n_sl_id < 168 else 37)["offset"]

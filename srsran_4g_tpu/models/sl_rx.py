@@ -1,4 +1,4 @@
-"""Sidelink blind-search receiver: the TPU counterpart of the reference's
+"""Sidelink blind-search receiver: the batched counterpart of the reference's
 `pssch_pscch_file_test.c` flow — per-subframe OFDM demod, PSCCH blind
 search over the resource pool, SCI unpack, then PSSCH decode at the
 SCI-indicated allocation.
@@ -16,7 +16,7 @@ PRBs derive from the SCI RIV over subchannels
 All PSCCH hypotheses of a subframe (subchannels × cyclic shifts for
 TM3/4, PRB starts for TM1/2) are decoded as ONE batch through the
 conv-dematch → Viterbi → CRC chain — the blind search is a batch axis,
-not a loop, which is the TPU-native shape of the reference's
+not a loop, which is the batched shape of the reference's
 `for prb / for shift { pscch_decode }` scan.
 """
 

@@ -5,7 +5,7 @@ Counterpart of the reference's NR sync (`lib/src/phy/sync/ssb.c`,
 m-sequence PSS/SSS (TS 38.211 7.4.2), PBCH DMRS, polar-coded BCH
 (TS 38.212 7.1: payload+CRC24C, N=512, E=864), the 240-subcarrier x
 4-symbol SSB grid, and cell search — PSS correlation over NID2, SSS
-matched filtering over NID1 as one (336, 127) matmul (MXU-friendly),
+matched filtering over NID1 as one (336, 127) matmul,
 then PBCH decode.
 
 Rate matching is pure repetition (E > N); the 38.212 sub-block

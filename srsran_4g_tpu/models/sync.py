@@ -3,11 +3,11 @@
 Counterpart of the reference's `lib/src/phy/sync/{pss.c,sss.c,sync.c,cfo.c}`
 and the find/track state machine in `lib/src/phy/ue/ue_sync.c`.
 
-TPU design: PSS matched filtering is one batched FFT-domain correlation
+Design: PSS matched filtering is one batched FFT-domain correlation
 (pss.c:83-194's FFT correlation, but over a whole batch of capture windows
 and all three N_ID_2 hypotheses at once); SSS detection is a single
 (B, 62) × (62, 2·168) real correlation matmul over every (N_ID_1, frame
-phase) hypothesis — MXU work instead of the reference's per-hypothesis
+phase) hypothesis — one matmul instead of the reference's per-hypothesis
 loops.  CFO estimators: CP-based (cp.c) and PSS-based (pss.c cfo).
 """
 

@@ -7,7 +7,7 @@ geometry), `lib/src/phy/phch/harq_ack.c` (downlink association sets,
 ACK/NACK bundling and multiplexing for TDD), and `sync.c`'s frame-type
 detection (PSS/SSS relative position differs between FDD and TDD).
 
-TPU-first: all tables are host-side numpy constants; the per-subframe
+Batch-first: all tables are host-side numpy constants; the per-subframe
 type never enters a jitted graph (it selects which static graph runs),
 and the frame-type detector is one extra 336×2 correlation matmul over a
 second SSS-position hypothesis.

@@ -8,7 +8,7 @@ RI symbols reserved at columns {1,4,7,10} bottom-up, ACK symbols
 puncturing columns {2,3,8,9} bottom-up, CQI prepended to data), per
 TS 36.212 §5.2.2.6-5.2.2.8 and §5.2.4.
 
-TPU-first design: the whole multiplexing structure is a single
+Batch-first design: the whole multiplexing structure is a single
 host-precomputed bijective gather `out[p] = src[perm[p]]` over the
 flattened (symbols × Qm) bit grid plus an ACK puncture index vector, so
 encode is one gather + one scatter and demux on the receive side is the

@@ -5,7 +5,7 @@ FIND/TRACK state machine at :135, CFO tracking loops :232-240, timestamp
 bookkeeping), `ue/ue_cell_search.c` and `ue/ue_mib.c`, and the UE sync
 thread FSM of `srsue/src/phy/sync.cc` (CELL_SEARCH/SFN_SYNC/CAMPING).
 
-TPU-native redesign: the host FSM holds only scalars (state, sample
+Batched redesign: the host FSM holds only scalars (state, sample
 offset, CFO accumulator); each call hands one subframe's samples to the
 jitted find/track graphs.  Batch-of-streams operation (many UEs) falls
 out of the leading batch dimension.

@@ -1,7 +1,7 @@
 """Automatic gain control (reference: lib/src/phy/agc/agc.c).
 
 The reference runs a feedback loop adjusting RF gain from per-frame peak/
-RSSI measurements.  The TPU-native equivalent is a batched estimator +
+RSSI measurements.  The batched equivalent is a batched estimator +
 exponential-tracking update that can run inside the jitted receive
 pipeline; the returned gain multiplies the sample stream.
 """

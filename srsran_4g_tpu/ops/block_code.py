@@ -6,7 +6,7 @@ the RM(20,A) encoder in `lib/src/phy/phch/uci.c`.  Basis matrices are spec
 tables (utils/uci_tables.npz).
 
 Decoding is brute-force max-likelihood: correlate the LLRs against all 2^A
-codewords — one (B, N) × (N, 2^A) matmul on the MXU, exact ML for A ≤ 13.
+codewords — one (B, N) × (N, 2^A) matmul, exact ML for A ≤ 13.
 """
 
 from __future__ import annotations

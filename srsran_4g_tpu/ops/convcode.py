@@ -5,7 +5,7 @@ TS 36.212 §5.1.3.1 (generators 133, 171, 165 octal) — used by PBCH, PDCCH
 `lib/src/phy/fec/convolutional/{convcoder.c,viterbi*.c}` (SSE/AVX/NEON ACS
 kernels).
 
-TPU design: the add-compare-select recursion runs as a `lax.scan` over
+Design: the add-compare-select recursion runs as a `lax.scan` over
 trellis steps on a (batch, 64) path-metric tensor — the 64-state dimension
 and the batch dimension are both vector lanes, so one scan step is a pair
 of static gathers + adds + max, and hundreds of codewords (e.g. all PDCCH

@@ -1,14 +1,14 @@
 """CRC attachment/checking as GF(2) linear algebra, TS 36.212 §5.1.1.
 
 The reference computes CRCs with byte-wise LUT stepping
-(lib/src/phy/fec/crc.c).  On TPU we instead exploit that a zero-initialised
+(lib/src/phy/fec/crc.c).  Here we instead exploit that a zero-initialised
 CRC is a *linear* function of the message bits over GF(2):
 
     crc(m) = m @ G  (mod 2)
 
 where row i of G is the CRC of a unit impulse at bit position i.  G is
 precomputed once per (message length, polynomial) on the host and cached; the
-device-side computation is then a single f32 matmul on the MXU followed by a
+device-side computation is then a single f32 matmul followed by a
 parity reduction — ideal for checking whole batches of code blocks at once.
 f32 accumulation is exact up to 2^24 contributions, far above the largest LTE
 transport block (~392k bits).
@@ -81,6 +81,8 @@ def crc_compute(bits: jnp.ndarray, poly_key: str) -> jnp.ndarray:
     """Device CRC: bits (..., N) int/float 0-1 → (..., order) int8 parity."""
     n = bits.shape[-1]
     g = jnp.asarray(crc_matrix(n, poly_key), dtype=jnp.float32)
+    # exact at any matmul precision: 0/1 operands are exact in TF32 and
+    # bf16, and the f32 accumulator holds the integer sums (<= n < 2^24)
     acc = jnp.dot(bits.astype(jnp.float32), g, preferred_element_type=jnp.float32)
     return (acc.astype(jnp.int32) & 1).astype(jnp.int8)
 
@@ -92,7 +94,7 @@ def crc_check(bits_with_crc: jnp.ndarray, poly_key: str) -> jnp.ndarray:
     """
     n = bits_with_crc.shape[-1]
     g = jnp.asarray(crc_matrix(n, poly_key), dtype=jnp.float32)
-    acc = jnp.dot(
+    acc = jnp.dot(  # exact at any precision, as in crc_compute
         bits_with_crc.astype(jnp.float32), g, preferred_element_type=jnp.float32
     )
     rem = acc.astype(jnp.int32) & 1

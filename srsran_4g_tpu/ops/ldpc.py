@@ -1,7 +1,7 @@
 """NR LDPC encoder/decoder (BG1/BG2), TS 38.212 §5.3.2.
 
 Counterpart of the reference's `lib/src/phy/fec/ldpc/` (23 files of scalar/
-AVX2/AVX512 encoders and layered/flooded decoders).  TPU design:
+AVX2/AVX512 encoders and layered/flooded decoders).  Design:
 
 - The lifted parity-check structure is folded into ONE static gather-index
   tensor (row, edge, z) → flat variable index, with each edge's cyclic
@@ -10,7 +10,7 @@ AVX2/AVX512 encoders and layered/flooded decoders).  TPU design:
   per-layer loops, fully batched over codewords with the lifting dimension
   Z in lanes.
 - Encoding solves the 4Z×4Z core via a host-precomputed GF(2) inverse
-  applied as an MXU matmul (mod 2); the remaining parity rows are direct
+  applied as a matmul (mod 2); the remaining parity rows are direct
   XOR accumulations.
 - Normalized min-sum (factor 0.8), fixed iterations, two schedules: the
   flooding default (one fused gather/min/scatter per iteration — widest

@@ -8,7 +8,7 @@ lte_tables.c}`.  Design:
 - **soft demod**: Gray-mapped square QAM factorises per real axis; we compute
   the *exact* max-log LLR per axis by evaluating the squared distance to all
   2^(Qm/2) PAM levels and taking masked minima over the bit-0 / bit-1 level
-  subsets.  This is a handful of fully-vectorised VPU ops per RE — unlike the
+  subsets.  This is a handful of fully-vectorised elementwise ops per RE — unlike the
   reference's hand-written piecewise "zone" kernels (demod_soft.c:846-896) we
   let the compiler fuse the whole thing, and it is exact max-log for every
   constellation including 256QAM.

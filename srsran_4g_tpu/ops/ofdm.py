@@ -1,6 +1,6 @@
 """OFDM modulation/demodulation with cyclic prefix, TS 36.211 §6.12.
 
-TPU-native counterpart of the reference's FFTW-based `lib/src/phy/dft/ofdm.c`.
+Batched counterpart of the reference's FFTW-based `lib/src/phy/dft/ofdm.c`.
 Instead of per-symbol strided "guru" FFT plans, we process a whole subframe
 (or a batch of subframes) as one static-shape tensor program:
 

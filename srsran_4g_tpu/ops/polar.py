@@ -1,7 +1,7 @@
 """NR polar code: construction, encoder, SC decoder, TS 38.212 §5.3.1.
 
 Counterpart of the reference's `lib/src/phy/fec/polar/` (code construction
-`polar_code.c`, scalar/AVX2 encoders, SSC decoders).  TPU design:
+`polar_code.c`, scalar/AVX2 encoders, SSC decoders).  Design:
 
 - encoder: the generator F^{⊗n} butterfly — log2(N) fully vectorised XOR
   stages over (B, N) tensors;
@@ -13,7 +13,7 @@ Counterpart of the reference's `lib/src/phy/fec/polar/` (code construction
 - construction: NR universal reliability sequence (mother-code tables,
   spec data in utils/polar_tables.npz) → frozen set for (K, N).
 
-The reference's SSC tree pruning is a CPU latency optimisation; on TPU the
+The reference's SSC tree pruning is a CPU latency optimisation; on the accelerator the
 batch dimension supplies the parallelism, so plain SC with a static
 schedule is simpler and fully vectorised.
 """

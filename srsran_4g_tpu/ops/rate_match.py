@@ -2,7 +2,7 @@
 
 Counterpart of the reference's `lib/src/phy/fec/turbo/rm_turbo.c`, which
 precomputes giant deinterleaver LUTs (rm_turbo.c:79-100) and soft-combines
-with SIMD adds.  Same idea, TPU-shaped:
+with SIMD adds.  Same idea, batch-shaped:
 
 - All the sub-block interleaving, bit collection and bit selection logic is
   folded into **one host-precomputed index vector per (K, rv, E, Ncb)**

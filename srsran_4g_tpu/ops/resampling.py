@@ -6,7 +6,7 @@ and the device rate, radio.cc:327-355).
 
 - `resample_fft`: rational L/M resampling in the frequency domain — one
   batched FFT, spectrum truncate/zero-pad, IFFT.  Exact for band-limited
-  signals, and the natural TPU formulation of the reference's FFT
+  signals, and the natural batched formulation of the reference's FFT
   resampler.
 - `resample_polyphase`: arbitrary-ratio polyphase interpolation with a
   windowed-sinc filter bank: output n gathers a length-NTAPS input window

@@ -9,7 +9,7 @@ The LTE scrambling/pilot sequence c(n) is the XOR of two 31-bit LFSRs:
 x1 is seeded with 1, x2 with ``c_init``.  The reference implements this with
 28-bit-parallel register stepping and a precomputed per-seed-bit superposition
 of the Nc fast-forward (lib/src/phy/common/sequence.c:48-170).  We use the
-same two ideas, TPU-style:
+same two ideas, batch-style:
 
 - the Nc fast-forward is a *linear* map of the seed over GF(2), so the
   advanced x2 state is the XOR of 31 precomputed basis states selected by the

@@ -1,6 +1,6 @@
 """LTE turbo codec: rate-1/3 PCCC encoder + windowed max-log-MAP decoder.
 
-TS 36.212 §5.1.3.2.  TPU-native counterpart of the reference's
+TS 36.212 §5.1.3.2.  Counterpart of the reference's
 `lib/src/phy/fec/turbo/{turbocoder.c,turbodecoder*.c,tc_interl_lte.c}`.
 
 Constituent RSC code: g0 = 1 + D² + D³ (feedback, 13 octal),
@@ -9,7 +9,7 @@ per encoder (12 tail bits total, arranged per §5.1.3.2.2 into the three
 d-streams of length K+4 each).
 
 Decoder design (the reference's windowed SIMD max-log-MAP
-`turbodecoder_sse.c` re-thought for TPU):
+`turbodecoder_sse.c` re-thought for a batched accelerator):
 
 - Batched over code blocks: every tensor carries a leading batch dim `B`;
   a whole transport block's CBs (and many subframes' TBs) decode together.
@@ -20,8 +20,10 @@ Decoder design (the reference's windowed SIMD max-log-MAP
   Window 0 (alpha) / the last window (beta) start from exact boundary
   metrics instead of training.  `window=None` runs the exact full-length
   recursion (used as the parity oracle in tests).
-- The 8-state max-plus step is 2 static-index gathers + adds + max on the
-  VPU, vectorised over (B, W) — no data-dependent control flow anywhere.
+- The 8-state max-plus step is 2 static-index gathers + adds + max,
+  vectorised over (B, W) — no data-dependent control flow anywhere.  On a
+  CUDA device the whole half-iteration runs as one kernel instead
+  (`ops/pallas/turbo_map.py`), with the same arithmetic.
 - LLR convention: positive ⇒ bit 1; extrinsic scaling (default 0.75)
   compensates max-log optimism, standard for max-log turbo decoding.
 
@@ -349,152 +351,24 @@ def _map_windowed(lsa, lp, tail_sys, tail_par, win_len, train_len):
     return llr.reshape(batch + (k,))
 
 
-def _map_windowed_pl_r4(lsa, lp, tail_sys, tail_par, win_len, train_len,
-                        interpret=False, version="v5"):
-    """Radix-4 Pallas path: one shared (L+2T)-row gamma pair in (W, B)
-    lane order (no big transposes on the prep side), masks in-kernel.
+def _map_windowed_kernel(lsa, lp, tail_sys, tail_par, win_len, train_len,
+                        interpret=False):
+    """`_map_windowed` on the GPU kernel (Pallas, Triton route)."""
+    from srsran_4g_tpu.ops.pallas import turbo_map
 
-    version "v5" (default): sweep-only interleaved kernel + parallel XLA
-    LLR emission; "v4": single-chain kernel with fused in-loop emission.
-    """
-    from srsran_4g_tpu.ops.pallas.turbo_map import (
-        map_windowed_pallas_r4, map_windowed_pallas_v5)
-
-    assert lsa.ndim == 2
-    b, k = lsa.shape
-    l, t = win_len, train_len
-    w = k // l
-    n = w * b
-
-    gs = jnp.swapaxes(lsa, 0, 1)  # (K, B)
-    gp = jnp.swapaxes(lp, 0, 1)
-    # row r of the shared gamma block holds trellis k = w*l - t + r
-    k_idx = np.arange(w)[None, :] * l - t + np.arange(l + 2 * t)[:, None]
-    gidx = jnp.asarray(np.clip(k_idx, 0, k - 1))  # (L+2T, W)
-    gs_ext = gs[gidx].reshape(l + 2 * t, n)  # (L+2T, W, B) row-major
-    gp_ext = gp[gidx].reshape(l + 2 * t, n)
-
-    a_init = jnp.zeros((8, n), jnp.float32)
-    a_init = a_init.at[1:, :b].set(_NEG)  # window 0: exact start in state 0
-    b_init = jnp.zeros((8, n), jnp.float32)
-    b_exact = _exact_boundary_beta(tail_sys, tail_par)  # (B, 8)
-    b_init = b_init.at[:, (w - 1) * b:].set(jnp.swapaxes(b_exact, 0, 1))
-
-    if version == "v9":
-        from srsran_4g_tpu.ops.pallas.turbo_map import map_windowed_pallas_v9
-
-        llr = map_windowed_pallas_v9(
-            gs_ext, gp_ext, a_init, b_init, t, l, b, w, interpret=interpret
-        )
-    elif version in ("v7", "v8"):
-        from srsran_4g_tpu.ops.pallas.turbo_map import map_windowed_pallas_v7
-
-        llr = map_windowed_pallas_v7(
-            gs_ext, gp_ext, a_init, b_init, t, l, b, w, interpret=interpret,
-            radix4=(version == "v8")
-        )
-    elif version == "v6":
-        from srsran_4g_tpu.ops.pallas.turbo_map import map_windowed_pallas_v6
-
-        llr = map_windowed_pallas_v6(
-            gs_ext, gp_ext, a_init, b_init, t, l, b, w, interpret=interpret
-        )
-    elif version == "v5":
-        from srsran_4g_tpu.ops.pallas.turbo_map import emit_llr_pallas
-
-        astore, bstore = map_windowed_pallas_v5(
-            gs_ext, gp_ext, a_init, b_init, t, l, b, w, interpret=interpret
-        )
-        g2s = gs_ext[t:t + l].reshape(l // 2, 2, n)
-        g2p = gp_ext[t:t + l].reshape(l // 2, 2, n)
-        llr = emit_llr_pallas(g2s, g2p, astore, bstore,
-                              interpret=interpret).reshape(l, n)
-    else:
-        llr = map_windowed_pallas_r4(
-            gs_ext, gp_ext, a_init, b_init, t, l, b, w, interpret=interpret
-        )  # (L, N) with lane = w_idx * B + b_idx
-    llr = llr.reshape(l, w, b)
-    return jnp.transpose(llr, (2, 1, 0)).reshape(b, k)
-
-
-def _map_windowed_pl(lsa, lp, tail_sys, tail_par, win_len, train_len,
-                     interpret=False):
-    """Windowed max-log BCJR on the Pallas TPU kernel (same math as
-    `_map_windowed`, sequential work moved into one Mosaic program)."""
-    import os
-
-    # Default kernel: v9 (bf16 lane-paired v7: states-as-registers,
-    # interleaved chains, fused two-phase emission, 16 sublanes/vreg) —
-    # measured fastest at the bench shape on v5e-1: half-iteration
-    # 3.55 ms vs v7's 3.98 and v4's 5.30 (round 4).  All selectable
-    # kernels are covered by the interpret-mode parity matrix AND
-    # tools/tpu_smoke.py at the real bench shapes — the round-3
-    # unverified-default-flip cannot recur.
-    kern_ver = os.environ.get("TURBO_KERNEL", "v9")
-    if kern_ver in ("v7", "v8", "v9") and win_len % 4 != 0:
-        kern_ver = "v4"               # v7/v8/v9 need a mid-point split
-    if kern_ver == "v6":
-        # v6 stores BOTH chains' full metrics in f32 — at windows >=~128
-        # its VMEM budget shrinks the lane tile below Mosaic's 128-lane
-        # minimum (un-lowerable block spec).  Demote to v7, which stores
-        # only half-depth and fuses emission (strictly faster anyway).
-        s_all, l2 = win_len + 2 * train_len, win_len // 2
-        tc = 256
-        while tc > 8 and 8 * tc * (s_all * 16 + 128 + l2 * 128) > (
-                15 * 1024 * 1024):
-            tc //= 2
-        if tc < 128:
-            kern_ver = "v7"
-    if (kern_ver in ("v4", "v5", "v6", "v7", "v8", "v9") and win_len % 2 == 0
-            and train_len % 2 == 0 and train_len >= 2):
-        return _map_windowed_pl_r4(lsa, lp, tail_sys, tail_par, win_len,
-                                   train_len, interpret=interpret,
-                                   version=kern_ver)
-
-    from srsran_4g_tpu.ops.pallas.turbo_map import map_windowed_pallas
-
-    assert lsa.ndim == 2
-    b, k = lsa.shape
-    l, t = win_len, train_len
-    w = k // l
-    n = b * w
-
-    gs = jnp.moveaxis(lsa, -1, 0)  # (K, B)
-    gp = jnp.moveaxis(lp, -1, 0)
-
-    k_idx = (np.arange(w)[None, :] * l) - t + np.arange(t + l)[:, None]
-    valid = (k_idx >= 0).astype(np.float32)
-    gidx = jnp.asarray(np.clip(k_idx, 0, k - 1))
-    # (T+L, B, W) → (T+L, N)
-    gsa = jnp.moveaxis(gs[gidx], -1, 1).reshape(t + l, n)
-    gpa = jnp.moveaxis(gp[gidx], -1, 1).reshape(t + l, n)
-    ma = jnp.asarray(np.broadcast_to(valid[:, None, :], (t + l, b, w))
-                     .reshape(t + l, n))
-
-    k_idx_b = (np.arange(w)[None, :] * l + l + t - 1) - np.arange(t + l)[:, None]
-    valid_b = (k_idx_b <= k - 1).astype(np.float32)
-    gidx_b = jnp.asarray(np.clip(k_idx_b, 0, k - 1))
-    gsb = jnp.moveaxis(gs[gidx_b], -1, 1).reshape(t + l, n)
-    gpb = jnp.moveaxis(gp[gidx_b], -1, 1).reshape(t + l, n)
-    mb = jnp.asarray(np.broadcast_to(valid_b[:, None, :], (t + l, b, w))
-                     .reshape(t + l, n))
-
-    a_init = jnp.zeros((b, w, 8), jnp.float32)
-    a_init = a_init.at[:, 0, 1:].set(_NEG)
-    b_init = jnp.zeros((b, w, 8), jnp.float32)
-    b_init = b_init.at[:, w - 1, :].set(_exact_boundary_beta(tail_sys, tail_par))
-    a_init = jnp.moveaxis(a_init.reshape(n, 8), -1, 0)  # (8, N)
-    b_init = jnp.moveaxis(b_init.reshape(n, 8), -1, 0)
-
-    llr = map_windowed_pallas(
-        gsa, gpa, ma, gsb, gpb, mb, a_init, b_init, t, l, interpret=interpret
-    )  # (L, N)
-    # llr[pos, b*W + w] = LLR at trellis k = w*l + pos
-    llr = llr.reshape(l, b, w)
-    return jnp.moveaxis(llr, 0, -1).reshape(b, k)
+    return turbo_map.map_windowed(
+        lsa, lp, _exact_boundary_beta(tail_sys, tail_par), win_len,
+        train_len, _NEG, interpret=interpret)
 
 
 # --- full decoder -----------------------------------------------------------
+
+
+def choose_window(k: int, window: int, train: int) -> int | None:
+    """Largest divisor of K that is <= the requested window and > train, so
+    awkward sizes still get a parallel-window decode (None: full length)."""
+    return next((l for l in range(min(window, k), train, -1) if k % l == 0),
+                None)
 
 
 def turbo_decode(
@@ -517,9 +391,11 @@ def turbo_decode(
         full-length recursion.
       train: training prologue length T (< window).
       ext_scale: extrinsic scaling factor for max-log.
-      backend: "pallas" (TPU Mosaic kernel), "xla" (lax.scan), or "auto"
-        (pallas on TPU, xla elsewhere).  "pallas_interpret" runs the
-        kernel in interpreter mode (CPU testing).
+      backend: "auto" lets the lowering platform choose the windowed
+        half-iteration: the GPU kernel (`ops/pallas/turbo_map.py`, Pallas
+        through Triton) on CUDA, `_map_windowed` (`lax.scan`) elsewhere.
+        "xla" always takes `_map_windowed`; "triton_interpret" runs the
+        kernel in the Pallas interpreter (CPU tests).
       early_crc: CRC key ("24A"/"24B") appended to each code block; when
         given, iterations run in a `lax.while_loop` that exits as soon as
         EVERY block in the batch passes its CRC — the reference's per-CB
@@ -529,8 +405,8 @@ def turbo_decode(
     Returns:
       (hard_bits (B, K) int8, app_llr (B, K) float32).
     """
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() not in ("cpu",) else "xla"
+    if backend not in ("auto", "xla", "triton_interpret"):
+        raise ValueError(f"unknown turbo backend {backend!r}")
     k = d_llr.shape[-1] - 4
     d0, d1, d2 = d_llr[..., 0, :], d_llr[..., 1, :], d_llr[..., 2, :]
     ls = d0[..., :k]
@@ -547,21 +423,21 @@ def turbo_decode(
     ls_int = ls[..., perm]
 
     if window is not None:
-        # largest divisor of K that is <= the requested window and > train,
-        # so awkward sizes still get a parallel-window decode
-        window = next(
-            (l for l in range(min(window, k), train, -1) if k % l == 0), None
-        )
+        window = choose_window(k, window, train)
 
     def half(lsa, lp, tsys, tpar):
         if window is None:
             return _map_full(lsa, lp, tsys, tpar)
-        if backend == "pallas":
-            return _map_windowed_pl(lsa, lp, tsys, tpar, window, train)
-        if backend == "pallas_interpret":
-            return _map_windowed_pl(lsa, lp, tsys, tpar, window, train,
-                                    interpret=True)
-        return _map_windowed(lsa, lp, tsys, tpar, window, train)
+        args = (lsa, lp, tsys, tpar)
+        kernel = functools.partial(_map_windowed_kernel, win_len=window,
+                                   train_len=train)
+        plain = functools.partial(_map_windowed, win_len=window,
+                                  train_len=train)
+        if backend == "triton_interpret":
+            return kernel(*args, interpret=True)
+        if backend == "xla":
+            return plain(*args)
+        return jax.lax.platform_dependent(*args, cuda=kernel, default=plain)
 
     def iteration(la1):
         lsa1 = ls + la1
@@ -590,6 +466,7 @@ def turbo_decode(
 
         def crc_ok_per_block(app):
             bits = (app > 0).astype(jnp.float32)
+            # 0/1 operands and integer sums: exact at any matmul precision
             rem = jnp.dot(bits, g, preferred_element_type=jnp.float32)
             return jnp.all((rem.astype(jnp.int32) & 1) == 0, axis=-1)  # (B,)
 

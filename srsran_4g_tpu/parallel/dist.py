@@ -1,17 +1,17 @@
 """Multi-host (DCN) distribution: jax.distributed init + global meshes.
 
 The reference distributes across processes with ZMQ sample streams and
-SCTP signalling (SURVEY.md §2.8 P9).  The TPU-native equivalent is
+SCTP signalling (SURVEY.md §2.8 P9).  The batched equivalent is
 multi-controller JAX: every host runs the same SPMD program,
 `jax.distributed.initialize` wires the coordination service, the mesh
-spans all hosts' devices, and XLA routes collectives over ICI within a
-slice and DCN between hosts.
+spans all hosts' devices, and XLA routes collectives over the devices'
+interconnect within a host and the network between hosts.
 
 On a CPU test rig the same code path runs with
 `jax_platforms=cpu` + `xla_force_host_platform_device_count=N` per
 process — cross-process collectives go through XLA's CPU collectives,
 which is how `tests/test_multihost.py` smoke-tests the DCN path with
-two real OS processes and no TPU.
+two real OS processes and no accelerator.
 """
 
 from __future__ import annotations

@@ -2,14 +2,14 @@
 
 The reference scales with pipelined subframe workers + per-carrier threads
 on one node (SURVEY.md §2.7 P1/P3) and with ZMQ/SCTP across processes (P9).
-The TPU-native answer is a single SPMD program over a `jax.sharding.Mesh`:
+The answer here is a single SPMD program over a `jax.sharding.Mesh`:
 
 - axis ``dp``: data parallel over subframes / UEs / transport blocks
   (the analog of P1 pipeline + P3 per-carrier workers, without the
   in-order-commit problem — batch results are already ordered);
 - axis ``sp``: stream parallel over the time-sample axis of each subframe
   (the analog of the streaming sample pipeline), with CP/filter-tail halos
-  exchanged over ICI via `ppermute` (see parallel/stream.py).
+  exchanged between devices via `ppermute` (see parallel/stream.py).
 """
 
 from __future__ import annotations

@@ -5,11 +5,11 @@ encode → channel → receive → decode round per subframe batch, compiled as 
 single SPMD program with `shard_map`:
 
 - transport blocks are sharded over ``dp`` (subframe/UE data parallelism —
-  the TPU answer to the reference's pipelined sf_workers, SURVEY.md §2.7);
+  the batched answer to the reference's pipelined sf_workers, SURVEY.md §2.7);
 - the IQ sample stream of every subframe is sharded over ``sp`` in
   contiguous time blocks; the fading FIR's tail and symbol-spanning samples
   cross chips via `ppermute` halos (parallel/stream.py), the per-symbol
-  grids are reassembled with a `psum` — all ICI collectives;
+  grids are reassembled with a `psum` — all device-to-device collectives;
 - BLER/bit counters are `psum`-reduced over the whole mesh.
 """
 
@@ -60,7 +60,7 @@ def make_pipeline_step(
         tx_grid = pdsch_mod.add_crs(cfg, pdsch_mod.encode(cfg, tb_bits))
         samples = ofdm_mod.modulate(ofdm_cfg, tx_grid)  # (b_loc, sf_len)
 
-        # ---- channel: sp-sharded time blocks with ICI halo exchange -------
+        # ---- channel: sp-sharded time blocks with halo exchange -------
         chunk = ofdm_cfg.sf_len // sp
         sp_idx = jax.lax.axis_index("sp")
         local = jax.lax.dynamic_slice_in_dim(samples, sp_idx * chunk, chunk, -1)

@@ -1,12 +1,12 @@
-"""Sharded sample-stream operators with ICI halo exchange.
+"""Sharded sample-stream operators with halo exchange between devices.
 
 The reference's streaming mechanisms — ring buffers, FFT overlap-save
 convolution (`lib/src/phy/utils/convolution.c`, `channel/fading.c`), and
-CP-strided FFT plans (`dft/ofdm.c:172-207`) — become, on a TPU mesh,
-*time-block sharding*: each chip owns a contiguous chunk of the IQ sample
+CP-strided FFT plans (`dft/ofdm.c:172-207`) — become, on a device mesh,
+*time-block sharding*: each device owns a contiguous chunk of the IQ sample
 stream and exchanges only the block-boundary samples (filter tails, CP- and
 symbol-spanning regions) with its ring neighbor via `jax.lax.ppermute`
-(ICI neighbor exchange).  These functions are meant to run inside
+(neighbour exchange over the device interconnect).  These functions are meant to run inside
 `shard_map` with the sample axis sharded over the named mesh axis.
 """
 
@@ -40,7 +40,7 @@ def fir_filter_sharded(
 
     Each shard holds (..., chunk) contiguous samples; the first len(taps)-1
     output samples of a chunk need the previous chunk's tail, which arrives
-    over ICI from the ring neighbor instead of living in a host ring buffer.
+    from the ring neighbor over the device interconnect instead of living in a host ring buffer.
     """
     ntaps = taps.shape[-1]
     halo = left_halo(x, ntaps - 1, axis_name)
@@ -62,7 +62,7 @@ def ofdm_demodulate_sharded(
     locally; bodies spanning the boundary use a right-neighbor halo of
     symbol_sz+CP samples fetched via ppermute.  The per-shard symbol grids
     are summed over the axis (each symbol produced by exactly one shard)
-    via psum — on hardware this rides ICI.
+    via psum — on hardware this rides the device interconnect.
 
     Returns the full (..., nsymb, nre) grid, replicated over the axis.
     """

@@ -1,4 +1,4 @@
-"""LTE air interface: scheduler-driven subframes over the jitted TPU PHY.
+"""LTE air interface: scheduler-driven subframes over the jitted accelerator PHY.
 
 This is the glue the reference implements in `srsenb/src/phy/lte/cc_worker.cc`
 (encode_pdsch:596 + PDCCH put) and `srsue/src/phy/lte/cc_worker.cc`

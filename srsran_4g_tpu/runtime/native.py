@@ -1,6 +1,6 @@
 """ctypes bindings to the C++ host runtime (native/runtime.cc).
 
-Auto-builds libsrsran_tpu_rt.so with the in-tree Makefile on first use
+Auto-builds libsrsran_rt.so with the in-tree Makefile on first use
 (g++ is part of the supported toolchain).  See native/runtime.cc for the
 component ↔ reference mapping.
 """
@@ -16,7 +16,7 @@ import numpy as np
 
 _ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 _NATIVE_DIR = os.path.join(_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libsrsran_tpu_rt.so")
+_LIB_PATH = os.path.join(_NATIVE_DIR, "libsrsran_rt.so")
 _lock = threading.Lock()
 _lib = None
 

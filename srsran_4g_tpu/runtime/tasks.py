@@ -7,7 +7,7 @@ with per-producer ports, `common/task_scheduler.h:33`,
 (`common/tti_sempahore.h:41`), stackless `proc_t` procedures
 (`common/stack_procedure.h:205`) and the template FSM (`adt/fsm.h`).
 
-The TPU build's data plane is batched dataflow, so these primitives
+This build's data plane is batched dataflow, so these primitives
 orchestrate the *host* side: stack actors, timers, in-order TX commit
 of asynchronously finished subframe batches, and multi-step control
 procedures — single-threaded, deterministic, testable.
@@ -121,7 +121,7 @@ class TtiSemaphore:
     """FIFO in-order commit (tti_sempahore.h:41): producers `push` their
     token at dispatch; `can_commit(token)` is true only for the oldest
     outstanding; `release(token)` retires it.  The reference blocks
-    worker threads here; the TPU build reorders finished batch results."""
+    worker threads here; this build reorders finished batch results."""
 
     def __init__(self) -> None:
         self._fifo: deque = deque()

@@ -1,6 +1,6 @@
 """Bit-level message codec runtime (PER-style).
 
-TPU-native framework counterpart of the reference's hand-rolled ASN.1
+framework counterpart of the reference's hand-rolled ASN.1
 runtime `lib/src/asn1/asn1_utils.{h,cc}` (bit_ref, integer packers,
 length determinants, choice/seq-of helpers).  The generated 424 k-LoC
 codecs of the reference are replaced by compact hand-written codecs

@@ -4,7 +4,7 @@ Counterpart of the reference's `lib/src/mac/pdu.cc` /
 `lib/include/srsran/mac/pdu.h` (sch_pdu, rar_pdu): MAC subheaders
 (R/F2/E/LCID + F/L), control elements, SDU multiplexing, padding rules, and
 the Random Access Response PDU.  Host-side control-plane code — the
-transport blocks it produces/consumes are the bit payloads of the TPU
+transport blocks it produces/consumes are the bit payloads of the accelerator
 PHY pipeline (models/sch.py).
 """
 

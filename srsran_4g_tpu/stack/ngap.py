@@ -34,7 +34,7 @@ PDU_SUCCESSFUL = 1
 @dataclass
 class NgSetupRequest:
     global_gnb_id: int = 0x19B
-    gnb_name: str = "srsgnb-tpu"
+    gnb_name: str = "srsgnb01"
     tac: int = 0x000001
     plmn: int = 0x00F110
 
@@ -55,7 +55,7 @@ class NgSetupRequest:
 
 @dataclass
 class NgSetupResponse:
-    amf_name: str = "srsamf-tpu"
+    amf_name: str = "srsamf01"
     served_guami: int = 0x0001
     capacity: int = 255
 

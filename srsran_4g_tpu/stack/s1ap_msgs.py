@@ -39,7 +39,7 @@ PDU_UNSUCCESSFUL = 2
 @dataclass
 class S1SetupRequest:
     global_enb_id: int = 0x19B
-    enb_name: str = "srsenb-tpu"
+    enb_name: str = "srsenb01"
     tac: int = 0x0001
     plmn: int = 0x00F110
 
@@ -63,7 +63,7 @@ class S1SetupRequest:
 
 @dataclass
 class S1SetupResponse:
-    mme_name: str = "srsmme-tpu"
+    mme_name: str = "srsmme01"
     mme_group: int = 0x0001
     mme_code: int = 0x1A
     rel_capacity: int = 255

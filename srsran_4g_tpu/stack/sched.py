@@ -8,8 +8,8 @@ and the FAPI-like `get_dl_sched(tti)` contract the PHY pulls grants from
 (srsenb mac.cc:639).
 
 This is deliberately host-side Python: scheduling is branchy control-plane
-logic, not a TPU kernel (SURVEY §7.11).  The produced grants carry the
-exact (mcs, tbs, prb_mask, rv, harq_pid) tuples the TPU PDSCH pipeline
+logic, not an accelerator kernel (SURVEY §7.11).  The produced grants carry the
+exact (mcs, tbs, prb_mask, rv, harq_pid) tuples the PDSCH pipeline
 consumes, so a scheduler-driven multi-subframe simulation feeds the PHY
 directly.
 """

@@ -10,7 +10,7 @@ models/ra_nr.
 The reference parallelises slot workers with threads + locks (P8 in
 SURVEY §2.7); here each carrier is an independent object and
 `SchedNr.run_slot` iterates them — the host loop is microseconds per
-slot, and the TPU-side PHY consumes the grants batched across carriers.
+slot, and the accelerator-side PHY consumes the grants batched across carriers.
 """
 
 from __future__ import annotations

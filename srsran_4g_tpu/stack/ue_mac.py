@@ -1,6 +1,6 @@
 """UE-side MAC: HARQ entities, mux/demux, and the RA/BSR/PHR/SR procedures.
 
-TPU-native re-design of the reference UE MAC (TS 36.321 behavior):
+Batched re-design of the reference UE MAC (TS 36.321 behavior):
 reference call paths `srsue/src/stack/mac/mac.cc` (tb_decoded :370),
 `dl_harq.cc` / `ul_harq.cc` (8-process HARQ entities),
 `demux.cc` (MAC PDU -> RLC routing), `mux.cc` (logical-channel

@@ -1,7 +1,7 @@
 """Checkpoint/resume for long benchmark and BLER sweeps.
 
 The reference has no training-style checkpointing (SURVEY §5: its only
-persistent state is the FFTW wisdom cache and the HSS DB).  The TPU
+persistent state is the FFTW wisdom cache and the HSS DB).  The accelerator
 build's long-running artifacts are SNR×MCS sweep grids, which can take
 minutes-to-hours at high frame counts on real hardware; this module gives
 them orbax-style resume semantics at the granularity of one grid point:

@@ -1,6 +1,6 @@
 """LTE dimension tables and 3GPP constants.
 
-TPU-native equivalents of the reference's `lib/src/phy/common/phy_common.c`
+Batched equivalents of the reference's `lib/src/phy/common/phy_common.c`
 (srsran_symbol_sz, CP length macros), `lib/src/phy/fec/cbsegm.c` (code-block
 size table) and `lib/src/phy/fec/turbo/tc_interl_lte.c` (QPP interleaver
 parameters).  All numeric tables are 3GPP TS 36.211/36.212 specification data.

@@ -21,7 +21,7 @@ import sys
 import traceback
 from typing import Callable
 
-CRASH_FILE = "srsran_tpu.backtrace.crash"
+CRASH_FILE = "srsran.backtrace.crash"
 
 _handlers: list[Callable[[], None]] = []
 _installed = False

@@ -52,7 +52,7 @@ time.sleep(30)
         p.send_signal(signal.SIGTERM)
         p.wait(timeout=10)
         assert p.returncode == 128 + signal.SIGTERM
-        crash = os.path.join(d, "srsran_tpu.backtrace.crash")
+        crash = os.path.join(d, "srsran.backtrace.crash")
         assert os.path.exists(crash)
         with open(crash) as f:
             content = f.read()

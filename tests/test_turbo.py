@@ -148,4 +148,4 @@ def test_ber_parity_artifact_vs_reference():
     assert d["divergence_db"] <= 0.2, d
     # both curves reach the floor within the grid
     assert any(p["ref_ber"] == 0 for p in d["points"])
-    assert any(p["tpu_ber"] == 0 for p in d["points"])
+    assert any(p["fw_ber"] == 0 for p in d["points"])

@@ -50,9 +50,6 @@ def run_reference(binary: str, ebno: float, frames: int, iters: int) -> float:
 
 
 def run_framework(sigma2: float, frames: int, iters: int) -> float:
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from srsran_4g_tpu.ops import turbo
@@ -99,23 +96,23 @@ def main() -> None:
         rows.append(dict(ref_ebno_db=ref_ebno,
                          fw_ebno_db=round(ref_ebno - CONV_OFFSET_DB, 3),
                          sigma2=round(float(sigma2), 5),
-                         ref_ber=ref_ber, tpu_ber=fw_ber))
+                         ref_ber=ref_ber, fw_ber=fw_ber))
         print(f"sigma2={sigma2:.4f}  ref(Eb/No {ref_ebno:.2f}) BER "
-              f"{ref_ber:.2e}   tpu BER {fw_ber:.2e}", flush=True)
+              f"{ref_ber:.2e}   framework BER {fw_ber:.2e}", flush=True)
 
     ref_wf = waterfall_db([(r["ref_ebno_db"], r["ref_ber"]) for r in rows])
-    tpu_wf = waterfall_db([(r["ref_ebno_db"], r["tpu_ber"]) for r in rows])
-    offset = tpu_wf - ref_wf
+    fw_wf = waterfall_db([(r["ref_ebno_db"], r["fw_ber"]) for r in rows])
+    offset = fw_wf - ref_wf
     out = dict(k=K, frames=args.frames, iters=args.iters,
                conv_offset_db=CONV_OFFSET_DB, points=rows,
                ref_waterfall_1e3_db=round(float(ref_wf), 3),
-               tpu_waterfall_1e3_db=round(float(tpu_wf), 3),
+               fw_waterfall_1e3_db=round(float(fw_wf), 3),
                divergence_db=round(float(offset), 3))
     path = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                         "ber_parity.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"waterfall@1e-3: ref {ref_wf:.3f} dB, tpu {tpu_wf:.3f} dB, "
+    print(f"waterfall@1e-3: ref {ref_wf:.3f} dB, framework {fw_wf:.3f} dB, "
           f"divergence {offset:+.3f} dB")
     print(f"wrote {os.path.abspath(path)}")
 

@@ -30,10 +30,6 @@ def main():
 
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
-    import jax
-
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from srsran_4g_tpu.ops import turbo

@@ -29,10 +29,9 @@ def main():
     p.add_argument("--checkpoint", default="artifacts/bler_sweep.ckpt.json")
     args = p.parse_args()
 
-    import jax
-
     if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+        os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
     import jax.numpy as jnp
 
     from srsran_4g_tpu.channel.awgn import awgn, snr_to_noise_var

@@ -38,10 +38,6 @@ def payload(cfg, n_sf: int, seed: int = 1234) -> np.ndarray:
 
 
 def run_enb(port: int, n_sf: int) -> None:
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     from srsran_4g_tpu.models import enb_dl
     from srsran_4g_tpu.runtime.native import IqBridgeTx
 
@@ -59,10 +55,6 @@ def run_enb(port: int, n_sf: int) -> None:
 
 
 def run_ue(port: int, n_sf: int) -> int:
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
     from srsran_4g_tpu.models import ue_dl

@@ -1,4 +1,4 @@
-"""Full-system E2E: multi-UE <-> eNB over the TPU PHY with OTA control.
+"""Full-system E2E: multi-UE <-> eNB over the accelerator PHY with OTA control.
 
 The framework's counterpart of the reference's system test
 `test/run_lte.sh` (srsEPC + srsENB + srsUE over ZMQ RF + netns), in its
@@ -39,10 +39,6 @@ def run(n_ttis: int, n_pings: int, snr_db: float, nof_prb: int = 6,
         fading_profile: str | None = None, doppler_hz: float = 5.0,
         tm: int = 1, si_1c: bool = False, tdd: bool = False,
         verbose: bool = False):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
     from srsran_4g_tpu.runtime.lte_air import LteAirPhy
     from srsran_4g_tpu.stack.epc import Hss, Mme
 
@@ -208,7 +204,9 @@ def main() -> int:
                     help="frame structure type 2, UL/DL config 1")
     ap.add_argument("-v", action="store_true")
     args = ap.parse_args()
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    from srsran_4g_tpu.utils import compile_cache
+
+    compile_cache.enable()
 
     if args.cc == 2 and not args.burst:
         args.burst = 1400

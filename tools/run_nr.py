@@ -47,7 +47,6 @@ class NrAirPhy:
 
         import jax
 
-        jax.config.update("jax_platforms", "cpu")
         self.jax = jax
         self.functools = functools
         from srsran_4g_tpu.channel.awgn import snr_to_noise_var
@@ -201,10 +200,6 @@ class NrAirPhy:
 
 
 def run(n_slots: int, n_pings: int, snr_db: float, verbose: bool = False):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
     from srsran_4g_tpu.channel.awgn import awgn
     from srsran_4g_tpu.models import dci_nr, ra_nr, ue_sync_nr
     from srsran_4g_tpu.models import ssb as ssb_mod

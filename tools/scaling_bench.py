@@ -2,7 +2,7 @@
 
 Runs the full encode→channel→receive→decode pipeline step over (dp, 1)
 meshes of 1/2/4/8 devices with a FIXED PER-DEVICE batch (weak scaling)
-and records step wall time + aggregate throughput.  On real TPU chips
+and records step wall time + aggregate throughput.  On real accelerators
 the dp axis is embarrassingly parallel (the only collective is the
 final psum of the metrics), so weak-scaling efficiency tracks the
 metric-psum overhead; on this CPU rig the virtual devices share the
@@ -34,9 +34,9 @@ def main() -> int:
 
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
+    # virtual devices exist on the host platform only
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     import jax
-
-    jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from srsran_4g_tpu.models import grid as G, pdsch
